@@ -1,11 +1,11 @@
-"""tpu-imagecodec: a TPU-native batched image encode/decode engine.
+"""tpu-imagecodec: a batched image encode/decode engine for accelerators.
 
 From-scratch re-design of the capabilities of nvImageCodec
 (reference: /root/reference, v0.2.0-beta — see SURVEY.md) for JAX/XLA/Pallas:
 unified decode/encode API with format auto-detection, priority-ordered codec
 backends with per-sample fallback, batched variable-shape processing, and the
-codec hot loops (entropy coding, IDCT/DCT, DWT, color conversion, resampling)
-running on TPU.
+codec pixel stages (IDCT/DCT, DWT, color conversion, resampling) and JPEG
+entropy decode running on the device (an NVIDIA GPU).
 """
 from .version import __version__  # noqa: F401
 

@@ -1,6 +1,6 @@
 """Public Decoder/Encoder API.
 
-TPU-native counterpart of the reference Python binding surface
+Counterpart of the reference Python binding surface
 (reference: python/decoder.cpp:147-401 — decode/read for bytes/path/lists,
 default u8 I_RGB output, allow_any_depth, EXIF handling, failed samples
 dropped; python/encoder.cpp:110-290 — encode/write with quality/psnr and
@@ -94,7 +94,7 @@ class Decoder:
         ]
         return self._generic.decode_batch_async(streams, params)
 
-    def _decode_batch(self, sources: List[Source], params, to_tpu: bool = False):
+    def _decode_batch(self, sources: List[Source], params, to_device: bool = False):
         params = params or DecodeParams()
         streams = [
             s if isinstance(s, CodeStream) else CodeStream(s, self._generic.registry)
@@ -145,7 +145,7 @@ class Decoder:
 
                 arr = convert(arr, params.sample_format, params.sample_type)
             img = Image(arr, info)
-            if to_tpu:
+            if to_device:
                 img = img.tpu()
             out.append(img)
         return out

@@ -1,7 +1,7 @@
 """Command-line tools: `imtrans` (transcoder) and `improc` (decode →
 crop/resize → encode pipeline).
 
-TPU-native counterparts of the reference sample apps
+Counterparts of the reference sample apps
 (reference: example/nvimtrans/main.cpp:144-779 + command_line_params.h —
 flags -i/-o/-c/-q/--psnr/--chroma_subsampling/--reversible/--num_decomps/
 --block_size/--optimized_huffman/--ignore_orientation/-b batch/-v, per-phase

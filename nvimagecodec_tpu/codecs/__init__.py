@@ -13,7 +13,7 @@ def register_builtin_codecs(registry) -> None:
     registry.codec("pnm").register_decoder(PnmDecoder())
     registry.codec("pnm").register_encoder(PnmEncoder())
 
-    # JPEG backends: TPU-hybrid first, CPU fallback after
+    # JPEG backends: device hybrid first, CPU fallback after
     # (reference ladder: nvjpeg HW → CUDA → libjpeg_turbo → opencv).
     try:
         from .jpeg import register as register_jpeg

@@ -1,11 +1,11 @@
 """BMP decode/encode (CPU backend).
 
-TPU-native counterpart of the reference's example BMP extension
+Counterpart of the reference's example BMP extension
 (reference: extensions/nvbmp/{decoder,encoder}.cpp — 8-bit BMP read/write in
 P_RGB/I_RGB). Ours goes further, matching what the reference gets from its
 OpenCV fallback (extensions/opencv/opencv_decoder.cpp): 1/4/8-bit palette,
 16/24/32 bpp, top-down and bottom-up rows, RLE8 — vectorized with numpy;
-pixel data for BMP is uncompressed so there is no TPU win to chase here.
+pixel data for BMP is uncompressed so there is no device win to chase here.
 """
 from __future__ import annotations
 

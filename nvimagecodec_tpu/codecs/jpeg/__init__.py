@@ -1,11 +1,11 @@
 """JPEG codec backends.
 
-TPU-native replacement for the reference's nvjpeg extension
+Replacement for the reference's nvjpeg extension
 (reference: extensions/nvjpeg/ — HW/CUDA/lossless decoders + CUDA encoder,
 priority ladder at nvjpeg_ext.cpp:42-47). Our ladder:
 
 - `tpu_jpeg_hybrid_decoder` (HYBRID_CPU_TPU, HIGH): host entropy decode
-  (native C++ when built, Python fallback) + jitted TPU pixel stage — the
+  (native C++ when built, Python fallback) + jitted device pixel stage — the
   analog of nvjpeg's hybrid CPU-Huffman/GPU pipeline
   (extensions/nvjpeg/cuda_decoder.cpp:425-427).
 - `cpu_jpeg_decoder` (CPU_ONLY, NORMAL): same entropy + numpy pixel stage —
@@ -175,7 +175,7 @@ class _JpegDecoderBase(DecoderPlugin):
 
 
 class JpegHybridTpuDecoder(_JpegDecoderBase):
-    """Host entropy + TPU pixel stage (jitted per geometry)."""
+    """Host or device entropy + device pixel stage (jitted per geometry)."""
 
     plugin_id = "tpu_jpeg_hybrid_decoder"
     backend_kind = BackendKind.HYBRID_CPU_TPU
@@ -207,12 +207,12 @@ class JpegHybridTpuDecoder(_JpegDecoderBase):
             return _JpegDecoderBase.decode_batch(
                 self, data_batch, info_batch, params
             )
-        # Batched TPU path: entropy-decode all samples on host, then run the
+        # Batched device path: entropy-decode all samples on host, then run the
         # pixel stage grouped by geometry in single jitted calls
         # (the XLA analog of the reference's batched nvjpegDecodeBatched).
-        from .batch import decode_batch_tpu
+        from .batch import decode_batch_device
 
-        return decode_batch_tpu(data_batch, params,
+        return decode_batch_device(data_batch, params,
                                 fancy=self.fancy_upsampling, mesh=self.mesh,
                                 bitexact=self.bitexact)
 
@@ -232,7 +232,7 @@ class JpegCpuDecoder(_JpegDecoderBase):
 
 
 class JpegHybridTpuEncoder(EncoderPlugin):
-    """Batched TPU encoder: bucketed device fDCT/quant + native host Huffman
+    """Batched device encoder: bucketed device fDCT/quant + native host Huffman
     (the reference's HYBRID_CPU_GPU nvjpeg encoder ladder slot,
     extensions/nvjpeg/cuda_encoder.cpp:284-436). First in the priority
     chain; per-sample failures re-route to cpu_jpeg_encoder at runtime."""
@@ -258,9 +258,9 @@ class JpegHybridTpuEncoder(EncoderPlugin):
         return out
 
     def encode_batch(self, image_batch, info_batch, params) -> List[EncodeResult]:
-        from .batch_encode import encode_batch_tpu
+        from .batch_encode import encode_batch_device
 
-        return encode_batch_tpu(image_batch, params, mesh=self.mesh)
+        return encode_batch_device(image_batch, params, mesh=self.mesh)
 
 
 class JpegCpuEncoder(EncoderPlugin):

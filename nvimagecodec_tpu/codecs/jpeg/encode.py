@@ -1,6 +1,6 @@
-"""JPEG encoder: TPU pixel stage + host Huffman entropy stage.
+"""JPEG encoder: device pixel stage + host Huffman entropy stage.
 
-TPU-native counterpart of the reference's nvjpeg CUDA encoder
+Counterpart of the reference's nvjpeg CUDA encoder
 (reference: extensions/nvjpeg/cuda_encoder.cpp:284-436 — quality 1-100,
 chroma subsampling select, optimized-Huffman option; python defaults
 quality=95 / 4:4:4 per python/encode_params.cpp:31,53-56).
@@ -8,7 +8,7 @@ quality=95 / 4:4:4 per python/encode_params.cpp:31,53-56).
 Split mirrors the decoder's hybrid design: the pixel half (RGB→YCbCr,
 chroma downsample, level shift, fDCT+quantize) is batched linear algebra —
 the fDCT of every 8x8 block folds with quantization into one [64,64] matrix,
-so a whole image is a single [N,64]x[64,64] MXU matmul. The entropy half
+so a whole image is a single [N,64]x[64,64] matmul. The entropy half
 (Huffman coding) is bit-serial host work: native C++ when built, Python
 reference fallback.
 """
@@ -113,7 +113,7 @@ def encode_pixels(
 
     The whole stage is fused linear algebra: color convert + downsample are
     elementwise/strided int ops (VPU), fDCT+quant is one [N,64]x[64,64]
-    matmul per component (MXU) via quant_dct_matrix (ops/dct.py).
+    matmul per component via quant_dct_matrix (ops/dct.py).
     """
     if use_jax:
         import jax.numpy as xp
@@ -179,9 +179,13 @@ def encode_pixels(
         x = xp.transpose(x, perm).reshape(*lead, bh * bw, 64)
         M = quant_dct_matrix(frame.quant[c.tq])  # [64(coef)/q, 64(pix)]
         if use_jax:
+            import jax
+
+            # HIGHEST: TF32 would flip quantizer decisions on a GPU
             coef = xp.einsum(
                 "...np,kp->...nk", x, xp.asarray(M),
                 preferred_element_type=xp.float32,
+                precision=jax.lax.Precision.HIGHEST,
             )
         else:
             coef = x @ M.T
@@ -488,8 +492,10 @@ def encode_jpeg(
     img: np.ndarray,
     params: Optional[EncodeParams] = None,
     use_jax: bool = False,
+    restart_interval: int = 0,
 ) -> bytes:
-    """Encode a uint8 [H,W] / [H,W,1] / [H,W,3] image to baseline JFIF bytes.
+    """Encode a uint8 [H,W] / [H,W,1] / [H,W,3] image to baseline JFIF bytes
+    (with a restart marker every `restart_interval` MCUs when nonzero).
 
     Reference behavior parity: quality + chroma subsampling + optimized
     Huffman per extensions/nvjpeg/cuda_encoder.cpp:284-436.
@@ -538,5 +544,6 @@ def encode_jpeg(
             dc_tables[1] = std(STD_DC_CHROMA)
             ac_tables[1] = std(STD_AC_CHROMA)
 
-    entropy = _entropy_encode(frame, coefs, dc_tables, ac_tables)
-    return write_jpeg(frame, entropy, dc_tables, ac_tables)
+    entropy = _entropy_encode(frame, coefs, dc_tables, ac_tables,
+                              restart_interval)
+    return write_jpeg(frame, entropy, dc_tables, ac_tables, restart_interval)

@@ -7,9 +7,9 @@ in tests/test_jpeg_entropy.py).
 
 This is the role the CPU Huffman host stage plays in the reference's hybrid
 decoder (extensions/nvjpeg/cuda_decoder.cpp:412-563: nvjpegDecodeJpegHost on
-CPU then GPU pixel stage); the TPU build keeps entropy on host (bit-serial,
-worst fit for vector units — SURVEY.md §7 hard parts) and ships coefficients
-to the TPU for dequant+IDCT+color.
+CPU then GPU pixel stage); this build keeps entropy on the host by default
+(bit-serial, worst fit for vector units — SURVEY.md §7 hard parts) and ships
+coefficients to the device for dequant+IDCT+color.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Region-of-interest JPEG decode: entropy-skip + windowed pixel stage.
 
-TPU-native counterpart of nvjpeg's ROI decode
+Counterpart of nvjpeg's ROI decode
 (reference: extensions/nvjpeg/cuda_decoder.cpp:460-520 — region handling via
 nvjpegDecodeParamsSetROI). The native entropy stage materializes only the MCU
 rows covering the region (rows above are Huffman-tracked for DC predictors

@@ -1,5 +1,5 @@
 """ctypes bridge to the native EBCOT Tier-1 coder (native/j2k_t1.cpp),
-fanned over a thread pool per codeblock — the TPU-framework analog of the
+fanned over a thread pool per codeblock — the analog of the
 reference's per-tile executor fan-out
 (extensions/nvjpeg2k/cuda_decoder.cpp:601-640)."""
 from __future__ import annotations

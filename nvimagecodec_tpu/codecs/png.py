@@ -1,6 +1,6 @@
 """PNG decoder: full RFC 2083 feature set on the CPU backend.
 
-TPU-native framework counterpart of the reference's PNG decode path
+Counterpart of the reference's PNG decode path
 (reference: extensions/opencv/opencv_decoder.cpp via cv::imdecode,
 registered CPU_ONLY at LOW priority, opencv_ext.cpp:38-44 — PNG has no GPU
 path in the reference either; inflate+defilter are inherently serial).

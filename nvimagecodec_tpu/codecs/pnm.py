@@ -1,6 +1,6 @@
 """PNM (PBM/PGM/PPM) decode/encode (CPU backend).
 
-TPU-native counterpart of the reference PNM writer
+Counterpart of the reference PNM writer
 (reference: extensions/nvpnm/encoder.cpp — PPM/PGM/PBM writer) plus a decoder
 (the reference decodes PNM via its OpenCV fallback,
 extensions/opencv/opencv_decoder.cpp). Pixels are raw; numpy is the right

@@ -1,6 +1,6 @@
 """CodeStream: encoded bytes + lazily-selected parser + cached ImageInfo.
 
-TPU-native counterpart of the reference CodeStream
+Counterpart of the reference CodeStream
 (reference: src/code_stream.cpp:28-127 — wraps an IoStream, resolves a parser
 via the registry on first use, caches the parsed nvimgcodecImageInfo_t).
 """

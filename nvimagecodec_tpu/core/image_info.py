@@ -1,6 +1,6 @@
 """ImageInfo: the parsed description of one image.
 
-TPU-native counterpart of nvimgcodecImageInfo_t
+Counterpart of nvimgcodecImageInfo_t
 (reference: include/nvimgcodec.h:790-828). Instead of a C struct with
 plane-strided raw buffers, we carry a plain dataclass; decoded pixels travel
 as numpy/jax arrays so XLA owns layout.

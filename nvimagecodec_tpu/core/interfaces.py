@@ -1,6 +1,6 @@
 """Plugin interfaces: parser / decoder / encoder.
 
-TPU-native counterpart of the reference's C vtable descriptors
+Counterpart of the reference's C vtable descriptors
 (reference: include/nvimgcodec.h — Parser :1034-1082, Decoder :1150-1209,
 Encoder :1087-1145). Instead of C structs of function pointers we use small
 ABCs; the registry stores factories with priorities and the scheduler calls
@@ -170,7 +170,7 @@ class EncoderPlugin:
 @dataclasses.dataclass
 class DecodeResult:
     """Per-sample decode outcome; `array` is numpy (host path) or jax.Array
-    (TPU path) in interleaved HWC layout unless planar was requested."""
+    (device path) in interleaved HWC layout unless planar was requested."""
 
     status: ProcessingStatus
     array: Optional[object] = None

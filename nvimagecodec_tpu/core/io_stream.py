@@ -1,6 +1,6 @@
 """Byte-stream abstractions.
 
-TPU-native counterpart of the reference IoStream family
+Counterpart of the reference IoStream family
 (reference: src/mem_io_stream.h:28 with zero-copy map() at :122,
 src/std_file_io_stream.h:24, src/mmaped_file_io_stream.h:24,
 src/iostream_factory.h). We expose one concept: anything that can produce a

@@ -1,6 +1,6 @@
 """Logging / debug messenger.
 
-TPU-native counterpart of the reference's debug-messenger architecture
+Counterpart of the reference's debug-messenger architecture
 (reference: src/logger.h, src/default_debug_messenger.h,
 include/nvimgcodec.h:717-793 — severity×category filtered fan-out to user
 callbacks). Python `logging` provides the default sink with a severity knob

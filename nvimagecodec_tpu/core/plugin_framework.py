@@ -1,6 +1,6 @@
 """Plugin framework: builtin + external codec module registration.
 
-TPU-native counterpart of the reference PluginFramework
+Counterpart of the reference PluginFramework
 (reference: src/plugin_framework.cpp:94-433 — extension discovery from
 NVIMGCODEC_EXTENSIONS_PATH, entry-symbol load, versioned dedup;
 src/builtin_modules.cpp:25-34 — builtin parser extension).

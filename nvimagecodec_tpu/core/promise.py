@@ -1,6 +1,6 @@
 """Per-sample promise/future with incremental readiness.
 
-TPU-native counterpart of ProcessingResultsPromise/Future
+Counterpart of ProcessingResultsPromise/Future
 (reference: src/processing_results.cpp:34-257 — shared state, per-sample
 `set`, `waitForAll`, and incremental `wait_new` at :78-93). The scheduler
 uses it to stream per-sample completions so fallback re-routing can happen

@@ -1,6 +1,6 @@
 """Codec registry: per-format priority-ordered factories + parser probing.
 
-TPU-native counterpart of the reference registry
+Counterpart of the reference registry
 (reference: src/codec.cpp:26-135 — priority multimaps of parser/decoder/
 encoder factories; src/codec_registry.cpp:33-59 — codec-name → Codec map with
 JPEG forced to the front of the parser probe order).

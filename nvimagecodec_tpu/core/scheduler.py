@@ -1,15 +1,15 @@
 """Batch orchestration: sort, split per codec, backend chain with fallback.
 
-TPU-native counterpart of ImageGenericDecoder/ImageGenericEncoder +
+Counterpart of ImageGenericDecoder/ImageGenericEncoder +
 DecoderWorker/EncoderWorker
 (reference: src/image_generic_decoder.cpp:51-285 — sortSamples largest-first
 :134-178, distributeWork :265-285; src/decoder_worker.cpp:29-307 — per-codec
 worker with canDecode filter, fallback chain, runtime failure re-routing
 :158-199; load_hint saturation per extensions/nvjpeg/hw_decoder.cpp:199,244).
 
-Differences by design (TPU-first):
+Differences by design (device-first):
 - Workers are tasks on a shared thread pool rather than one dedicated thread
-  per (codec, priority) — the host side exists to feed the TPU, and batches
+  per (codec, priority) — the host side exists to feed the device, and batches
   are re-bucketed by shape downstream, so sub-batch tasks + futures give the
   same overlap with less thread churn.
 - The backend ladder is TPU_ONLY/HYBRID_CPU_TPU → CPU_ONLY instead of

@@ -1,12 +1,12 @@
 """Priority thread pool with optional CPU affinity.
 
-TPU-native counterpart of the reference's ThreadPool
+Counterpart of the reference's ThreadPool
 (reference: src/thread_pool.cpp:127-196 — a priority work queue drained by
 worker threads whose affinity is set from NVML topology / the
 `<pool>_AFFINITY` env var). Here priorities order host-side work (decode
 before encode, large buckets before small) and affinity pins workers via
 `os.sched_setaffinity`, driven by `TPUIMGCODEC_AFFINITY` (a cpuset string
-like "0-3,8") since there is no NVML on a TPU host.
+like "0-3,8") instead of the reference's NVML-derived CPU sets.
 """
 from __future__ import annotations
 

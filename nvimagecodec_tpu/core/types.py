@@ -1,6 +1,6 @@
 """Core enums and small value types.
 
-TPU-native re-design of the reference's public enum surface
+Re-design of the reference's public enum surface
 (reference: include/nvimgcodec.h:307-670 — status codes, sample types, chroma
 subsampling, sample formats, color specs, JPEG encodings, backend kinds,
 processing-status bitmask, J2K progression orders). Values are semantically
@@ -214,7 +214,7 @@ class BackendKind(enum.IntEnum):
     """
 
     CPU_ONLY = 1
-    TPU_ONLY = 2  # all pixel work on TPU
+    TPU_ONLY = 2  # all pixel work on the device
     HYBRID_CPU_TPU = 3  # host entropy stage + TPU pixel stage
     HW_ONLY = 4  # reserved for dedicated offload engines
 

@@ -1,6 +1,6 @@
 """Image: decoded pixels with host/device migration and zero-copy interop.
 
-TPU-native counterpart of the reference Python Image
+Counterpart of the reference Python Image
 (reference: python/image.cpp:433-480 — exports __array_interface__,
 __cuda_array_interface__, __dlpack__, and .cpu()/.cuda() migration). Here the
 device side is a jax.Array; `.cpu()` gives a numpy view and `__dlpack__`
@@ -48,7 +48,7 @@ def apply_exif_orientation(arr, orientation: Orientation):
 
 
 class Image:
-    """Decoded image handle. Backing array is numpy (host) or jax.Array (TPU)."""
+    """Decoded image handle. Backing array is numpy (host) or jax.Array (device)."""
 
     def __init__(self, array, info: Optional[ImageInfo] = None):
         self._array = array

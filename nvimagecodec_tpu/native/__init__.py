@@ -2,27 +2,36 @@
 
 The reference ships its runtime as C++ (src/ → libnvimgcodec.so); our native
 layer covers the pieces where Python costs real time: JPEG entropy
-encode/decode (the host stage of the hybrid TPU pipeline). Built lazily into
-libtpuimgcodec.so next to the sources; rebuilt when any source changes.
+encode/decode (the host stage of the hybrid device pipeline). Built lazily into
+libimgcodec.so next to the sources; rebuilt when any source changes.
 """
 from __future__ import annotations
 
 import ctypes
-import glob
 import os
 import subprocess
 import threading
 from typing import Optional
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SO = os.path.join(_DIR, "libtpuimgcodec.so")
+_SO = os.path.join(_DIR, "libimgcodec.so")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
+# the library's translation units (optional/ holds separately built shims)
+_SOURCES = (
+    "j2k_block_batch.cpp", "j2k_finish.cpp", "j2k_ht.cpp", "j2k_idwt.cpp",
+    "j2k_t1.cpp", "j2k_t2.cpp", "jpeg_arith.cpp", "jpeg_encode_fast.cpp",
+    "jpeg_encode_pixels.cpp", "jpeg_entropy.cpp", "jpeg_huffman_encode.cpp",
+    "jpeg_lossless.cpp", "png_defilter.cpp", "tiff_fax.cpp", "tiff_lzw.cpp",
+    "webp_vp8.cpp", "webp_vp8_encode.cpp",
+)
+
+
 def _sources():
-    return sorted(glob.glob(os.path.join(_DIR, "*.cpp")))
+    return [os.path.join(_DIR, f) for f in _SOURCES]
 
 
 def _needs_build() -> bool:
@@ -95,20 +104,6 @@ def _declare(L: ctypes.CDLL) -> None:
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
     ]
     L.tic_jpeg_split_segments.restype = ctypes.c_int
-    L.tic_jpeg_index_scan.argtypes = [
-        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int32,
-        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
-        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
-        ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
-    ]
-    L.tic_jpeg_index_scan.restype = ctypes.c_int
-    L.tic_jpeg_pack_indexed.argtypes = [
-        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
-        ctypes.POINTER(ctypes.c_int64), ctypes.c_int32,
-        ctypes.POINTER(ctypes.c_uint32), ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_int32, ctypes.POINTER(ctypes.c_int32),
-    ]
-    L.tic_jpeg_pack_indexed.restype = ctypes.c_int
     L.tic_jpeg_encode_pixels.argtypes = [
         ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
         ctypes.c_int32, ctypes.POINTER(ctypes.c_int32),

@@ -1,5 +1,5 @@
 // HTJ2K (ITU-T T.814) block coder: HT Cleanup + HT SigProp + HT MagRef,
-// decode and encode. TPU-framework counterpart of the HTJ2K support the
+// decode and encode. Counterpart of the HTJ2K support the
 // reference gets from closed nvjpeg2k (reference:
 // extensions/nvjpeg2k/cuda_decoder.cpp:178 "nvjpeg2kStreamGetImageInfo...
 // HT"; README.md:38 "High Throughput JPEG2000").

@@ -1,6 +1,6 @@
 // Native multi-level inverse 5/3 DWT (ITU-T T.800 Annex F) for the
 // reversible J2K host decode path — the numpy lifting in ops/dwt.py is
-// the TPU/jax path; this is the host-CPU fast path (~4x faster than the
+// the device/jax path; this is the host-CPU fast path (~4x faster than the
 // vectorized-numpy equivalent on tile-sized planes).
 //
 // Layout matches ops/dwt.py: bands finest-first (HL, LH, HH per level),

@@ -2,7 +2,7 @@
 // MQ arithmetic coder (T.88) + the three coding passes over bitplanes:
 // significance propagation, magnitude refinement, cleanup (with run-length
 // mode). Both decoder and encoder, host-side — the bit-serial half of the
-// hybrid TPU J2K pipeline; the DWT/quant half runs on the TPU
+// hybrid J2K pipeline; the DWT/quant half runs on the device
 // (the role nvjpeg2k's GPU stages play in the reference,
 // extensions/nvjpeg2k/cuda_decoder.cpp). Written from the spec; no
 // reference code used.

@@ -6,7 +6,7 @@
 //
 // Output contract matches tic_jpeg_decode_coefficients (jpeg_entropy.cpp):
 // per-component MCU-padded [bh, bw, 64] int16 natural-order coefficient
-// planes, consumed by the same TPU/numpy pixel stage.
+// planes, consumed by the same device/numpy pixel stage.
 
 #include <cstdint>
 #include <cstdlib>

@@ -1,5 +1,5 @@
 // Native JPEG baseline Huffman entropy encoder — the host half of the
-// hybrid TPU encode pipeline (the role nvjpeg's entropy stage plays in the
+// hybrid device encode pipeline (the role nvjpeg's entropy stage plays in the
 // reference, extensions/nvjpeg/cuda_encoder.cpp:284-436). Implemented from
 // ITU-T T.81 F.1.2 directly; no reference code used.
 //

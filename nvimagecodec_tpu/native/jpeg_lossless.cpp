@@ -1,6 +1,6 @@
 // Lossless JPEG (SOF3) decoder — ITU-T T.81 Annex H.
 //
-// TPU-native counterpart of the reference's nvjpeg lossless decoder
+// Counterpart of the reference's nvjpeg lossless decoder
 // (extensions/nvjpeg/lossless_decoder.cpp, NVJPEG_BACKEND_LOSSLESS_JPEG):
 // Huffman-coded prediction residuals with the seven spatial predictors and
 // point transform. Prediction is sample-serial, so this stays a host stage;

@@ -1,5 +1,5 @@
 // VP8 (lossy WebP) keyframe decoder — RFC 6386 from scratch.
-// TPU-framework counterpart of the lossy-WebP coverage the reference gets
+// Counterpart of the lossy-WebP coverage the reference gets
 // from its OpenCV extension (reference:
 // extensions/opencv/opencv_decoder.cpp:31-150, opencv_webp_decoder).
 //

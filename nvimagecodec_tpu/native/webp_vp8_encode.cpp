@@ -1,5 +1,5 @@
 // VP8 (lossy WebP) keyframe encoder — RFC 6386 from scratch.
-// TPU-framework counterpart of the lossy-WebP encode the reference gets
+// Counterpart of the lossy-WebP encode the reference gets
 // from its OpenCV extension (reference:
 // extensions/opencv/opencv_encoder.cpp, imencode(".webp", quality)).
 //

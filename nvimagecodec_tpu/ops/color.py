@@ -1,6 +1,6 @@
 """Color space conversions, integer-exact to libjpeg's fixed-point math.
 
-TPU-native counterpart of the reference conversion kernels
+Counterpart of the reference conversion kernels
 (reference: src/imgproc/color_space_conversion_impl.h:64-190 — BT.601
 limited-range and JPEG full-range YCbCr⇄RGB). All ops are elementwise int32
 arithmetic (VPU-friendly) so lossless paths stay bit-exact; XLA fuses them

@@ -1,6 +1,6 @@
 """Output sample-format / dtype conversion matrix.
 
-TPU-native counterpart of the reference's convert kernels
+Counterpart of the reference's convert kernels
 (reference: src/imgproc/convert_kernel_gpu.cu:30-290 — the
 layout × channel-order × dtype launch matrix — and src/imgproc/convert.h —
 ConvertSatNorm semantics: integer↔integer rescaled by the ratio of full-scale

@@ -1,12 +1,11 @@
-"""8x8 DCT/IDCT as MXU matmuls.
+"""8x8 DCT/IDCT as matrix products.
 
-TPU-native replacement for the DCT stages the reference delegates to nvjpeg
+Replacement for the DCT stages the reference delegates to nvjpeg
 (the GPU IDCT inside nvjpegDecodeJpegDevice,
 extensions/nvjpeg/cuda_decoder.cpp:539-556). Design: the 2-D 8x8 IDCT is
 linear, so dequantization and the whole 2-D transform fold into ONE [64,64]
 matrix per quant table; a batch of blocks becomes a single [N,64]x[64,64]
-matmul — exactly the shape the MXU wants (SURVEY.md §7: "8x8 DCT/IDCT as
-fused matmul kernels").
+matmul (SURVEY.md §7: "8x8 DCT/IDCT as fused matmul kernels").
 """
 from __future__ import annotations
 
@@ -63,13 +62,15 @@ def idct_blocks(coefs, quant_natural: np.ndarray, precision: int = 8):
     unclipped — caller clips/rounds after upsample/color conversion to keep
     everything fused).
     """
+    import jax
     import jax.numpy as jnp
 
     M = dequant_idct_matrix(np.asarray(quant_natural))
     x = jnp.asarray(coefs, jnp.float32)
     center = float(1 << (precision - 1))
     return (
-        jnp.einsum("...k,pk->...p", x, M, preferred_element_type=jnp.float32)
+        jnp.einsum("...k,pk->...p", x, M, preferred_element_type=jnp.float32,
+                   precision=jax.lax.Precision.HIGHEST)
         + center
     )
 

@@ -1,10 +1,9 @@
 """Discrete wavelet transforms for JPEG2000 (ITU-T T.800 Annex F).
 
-TPU-native counterpart of the DWT stages nvjpeg2k runs on GPU in the
+Counterpart of the DWT stages nvjpeg2k runs on GPU in the
 reference (extensions/nvjpeg2k/cuda_decoder.cpp). Lifting is expressed as
-vectorized strided adds over [..., H, W] planes — pure VPU work that XLA
-fuses across steps; both numpy (CPU backend) and jax (TPU backend) run the
-same code. All ops are batch-agnostic (arbitrary leading dims).
+vectorized strided adds over [..., H, W] planes — elementwise work that XLA
+fuses across steps; numpy (host) and jax (device) run the same code. All ops are batch-agnostic (arbitrary leading dims).
 
 - 5/3 reversible: integer lifting, bit-exact invertible (lossless path).
 - 9/7 irreversible: float lifting with the standard α β γ δ K constants.
@@ -316,8 +315,9 @@ def idwt2d(LL, bands, out_shape: Tuple[int, int], reversible: bool,
 #
 # The vertical lifting steps read one neighbor sample across the row-shard
 # boundary, so a row-sharded inverse DWT needs a real halo exchange: each
-# device sends its boundary row to its neighbor over ICI via lax.ppermute.
-# This is the TPU realization of the "spatial parallel" axis the reference
+# device sends its boundary row to its neighbor via lax.ppermute (on a
+# multi-GPU host, an NVLink peer copy). This realizes the "spatial parallel"
+# axis the reference
 # approximates with its J2K tile pool (extensions/nvjpeg2k/
 # cuda_decoder.cpp:601-640) — here one tile's own transform is sharded.
 
@@ -413,13 +413,6 @@ def idwt2d_rows_sharded(LL, bands, out_shape: Tuple[int, int],
     from jax import lax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    try:
-        from jax import shard_map
-        kw = {"mesh": mesh}
-    except ImportError:  # pragma: no cover
-        from jax.experimental.shard_map import shard_map
-        kw = {"mesh": mesh}
-
     levels = len(bands)
     H, W = out_shape
     dims = subband_dims(H, W, levels)
@@ -476,11 +469,11 @@ def idwt2d_rows_sharded(LL, bands, out_shape: Tuple[int, int],
                 cur = idwt2d_level(cur, HL_, LH_, HH_, h, w, reversible)
         return cur
 
-    fn = shard_map(
+    fn = jax.shard_map(
         step,
+        mesh=mesh,
         in_specs=tuple(in_specs),
         out_specs=row_spec,
-        **kw,
     )
     args = [jax.device_put(jnp.asarray(LL),
                            shard if sharded_lev[levels - 1] else rep)]

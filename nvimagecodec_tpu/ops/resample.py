@@ -1,6 +1,6 @@
 """Chroma up/downsampling, integer-exact to libjpeg.
 
-TPU-native counterpart of the reference's chroma resampling (done inside
+Counterpart of the reference's chroma resampling (done inside
 nvjpeg on GPU; CPU fallback via libjpeg_turbo — the `fancy_upsampling` knob
 is exposed at include/nvimgcodec.h:1593-1594). All ops are vectorized
 shifted-neighbor arithmetic on int32 — pure VPU work that XLA fuses with the

@@ -8,8 +8,9 @@ NCCL/MPI/Gloo — SURVEY.md §2.7): we use jax.sharding over a Mesh with axes
 - "sp": spatial/tile parallel within one image (the analog of the J2K
   tile-resource pool, extensions/nvjpeg2k/cuda_decoder.cpp:601-640)
 
-Multi-host initialization goes through jax.distributed; intra-slice
-collectives ride ICI, cross-host DCN.
+Multi-host initialization goes through jax.distributed. On one host of four
+NVLink-joined GPUs every card reaches every other at the same rate, so the
+mesh follows the work alone (XLA hands the collectives to NCCL).
 """
 from __future__ import annotations
 

@@ -12,7 +12,7 @@ Two real shardings, both wired into the product decode path
 - **row-parallel**: a single tile's inverse DWT shards its ROWS over "sp".
   The vertical lifting steps read one neighbor row across the shard
   boundary, so this is a genuine halo exchange: lax.ppermute moves the
-  boundary rows over ICI (ops/dwt.idwt2d_rows_sharded). Bit-exact vs the
+  boundary rows between devices (ops/dwt.idwt2d_rows_sharded). Bit-exact vs the
   unsharded transform for the reversible 5/3 path.
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """BMP header parser.
 
-TPU-native counterpart of src/parsers/bmp.cpp (371 LoC): detects the "BM"
+Counterpart of src/parsers/bmp.cpp (371 LoC): detects the "BM"
 magic and handles core/info/v4/v5 header variants, palette detection, and
 bpp → channel mapping.
 """

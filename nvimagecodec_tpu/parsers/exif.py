@@ -1,6 +1,6 @@
 """Minimal EXIF (TIFF-tag) reader for orientation extraction.
 
-TPU-native counterpart of the reference's shared EXIF reader
+Counterpart of the reference's shared EXIF reader
 (reference: src/parsers/exif.cpp (538 LoC), orientation mapping in
 src/parsers/exif_orientation.h). We only need tag 0x0112 (orientation), read
 from a TIFF-structured blob that may be embedded in JPEG APP1 / WebP EXIF /

@@ -1,6 +1,6 @@
 """JPEG header parser.
 
-TPU-native counterpart of src/parsers/jpeg.cpp (448 LoC): SOI detect; marker
+Counterpart of src/parsers/jpeg.cpp (448 LoC): SOI detect; marker
 walk; SOF dims/precision/ncomp with sampling factors → chroma enum
 (jpeg.cpp:70-114); EXIF APP1 orientation; Adobe APP14 transform → CMYK/YCCK;
 SOF marker id → JpegEncoding (jpeg.cpp:346-353).

@@ -1,6 +1,6 @@
 """JPEG 2000 header parser.
 
-TPU-native counterpart of src/parsers/jpeg2k.cpp (485 LoC): JP2 signature box
+Counterpart of src/parsers/jpeg2k.cpp (485 LoC): JP2 signature box
 or raw SOC codestream detection (jpeg2k.cpp:34-35); JP2 box walk (ihdr/colr,
 :216-278); codestream SIZ parse — X/Y/XO/YO/CSiz and per-component
 Ssiz/XRSiz/YRSiz → dtype + chroma (:280-356). Unlike the reference (which

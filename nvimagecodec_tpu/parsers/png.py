@@ -1,6 +1,6 @@
 """PNG header parser.
 
-TPU-native counterpart of src/parsers/png.cpp (410 LoC): 8-byte signature,
+Counterpart of src/parsers/png.cpp (410 LoC): 8-byte signature,
 IHDR dims/bitdepth/color-type → channels, eXIf chunk orientation.
 """
 from __future__ import annotations

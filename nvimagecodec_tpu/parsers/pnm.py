@@ -1,6 +1,6 @@
 """PNM (PBM/PGM/PPM) header parser.
 
-TPU-native counterpart of src/parsers/pnm.cpp (321 LoC): P1..P6 ascii/binary
+Counterpart of src/parsers/pnm.cpp (321 LoC): P1..P6 ascii/binary
 variants, maxval → dtype.
 """
 from __future__ import annotations

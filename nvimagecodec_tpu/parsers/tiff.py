@@ -1,6 +1,6 @@
 """TIFF header parser.
 
-TPU-native counterpart of src/parsers/tiff.cpp (375 LoC): II*/MM* magic, IFD
+Counterpart of src/parsers/tiff.cpp (375 LoC): II*/MM* magic, IFD
 entry walk extracting width/height/samples-per-pixel/bits-per-sample/
 photometric (palette → 3 channels)/orientation, templated over LE/BE.
 """

@@ -1,6 +1,6 @@
 """WebP header parser.
 
-TPU-native counterpart of src/parsers/webp.cpp (378 LoC): RIFF/WEBP container,
+Counterpart of src/parsers/webp.cpp (378 LoC): RIFF/WEBP container,
 VP8 (lossy) / VP8L (lossless) / VP8X (extended, alpha flag) dimensions, EXIF
 chunk orientation.
 """

@@ -1,6 +1,6 @@
 """Input-pipeline integration: decode batches straight onto the device mesh.
 
-The production consumption pattern for a TPU image codec is a training/
+The production consumption pattern for a device image codec is a training/
 serving input pipeline: encoded bytes stream in on the host, decoded pixel
 batches come out as (optionally sharded) jax.Arrays with the decode of batch
 N+1 overlapping the device compute of batch N (the 2-page pipeline analog,

@@ -211,8 +211,8 @@ def test_target_psnr_single_pass_core():
 
 def test_jax_pixel_stage_matches_numpy_paths():
     """decode_j2k(use_jax=True) — single-tile and uniform-tile-grid device
-    stages — must match the numpy path exactly (runs on the CPU jax
-    backend here; verified identical on real TPU too)."""
+    stages — must match the numpy path exactly (on the CPU jax backend
+    here; chip_smoke.py holds the GPU to the same)."""
     img = make_photo(128, 160, seed=1)
     for kw in (dict(), dict(tile_size=64)):
         d = encode_j2k(img, reversible=True, levels=3, **kw)

@@ -179,3 +179,51 @@ def test_bitexact_progressive_and_restart(photo_s):
         ours = np.asarray(dec.decode(data))
         ref = oracle.jpeg_decode(data)
         assert np.array_equal(ours, ref), max_abs_diff(ours, ref)
+
+
+def _dot_precisions(jaxpr):
+    """Precision of every dot_general in a closed jaxpr, sub-jaxprs too."""
+    from jax.extend import core
+
+    out = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            out.append(eqn.params["precision"])
+        for v in eqn.params.values():
+            for sub in v if isinstance(v, (tuple, list)) else [v]:
+                if isinstance(sub, core.ClosedJaxpr):
+                    out.extend(_dot_precisions(sub.jaxpr))
+                elif isinstance(sub, core.Jaxpr):
+                    out.extend(_dot_precisions(sub))
+    return out
+
+
+@pytest.mark.parametrize("stage", ["decode_pixels", "encode_pixels"])
+def test_f32_contractions_run_at_highest_precision(stage):
+    """Every f32 contraction of the pixel stages asks for HIGHEST precision:
+    a GPU would otherwise run it in TF32 (~11 significant bits), which moves
+    decoded pixels and flips quantizer decisions."""
+    import jax
+    import jax.numpy as jnp
+
+    from nvimagecodec_tpu.codecs.jpeg.encode import (
+        build_encode_frame,
+        encode_pixels,
+    )
+    from nvimagecodec_tpu.core.types import ChromaSubsampling
+
+    img = make_photo(32, 48, seed=1)
+    if stage == "decode_pixels":
+        data = oracle.jpeg_encode(img, 90, "420")
+        frame = parse_jpeg_structure(data)
+        coefs = decode_coefficients(frame, data)
+        fn = lambda *c: decode_pixels(frame, list(c), use_jax=True)
+        args = [jnp.asarray(c) for c in coefs]
+    else:
+        frame = build_encode_frame(32, 48, 3, 85, ChromaSubsampling.CSS_420)
+        fn = lambda x: encode_pixels(x, frame, use_jax=True)
+        args = [jnp.asarray(img)]
+    precs = _dot_precisions(jax.make_jaxpr(fn)(*args).jaxpr)
+    highest = jax.lax.Precision.HIGHEST
+    assert precs, "no contraction traced"
+    assert all(p == (highest, highest) for p in precs), precs

@@ -74,3 +74,30 @@ def psnr(a, b):
     if mse == 0:
         return 99.0
     return 10.0 * np.log10(255.0**2 / mse)
+
+
+def jpeg_corpus(n: int, h: int = 375, w: int = 500, quality: int = 85,
+                restart_interval: int = 0, nbase: int = 8):
+    """Seeded 4:2:0 JPEG corpus: (base photos, n streams cycling over them,
+    whether the system libjpeg oracle encoded them). Falls back to this
+    repo's own encoder where the oracle library does not build."""
+    import subprocess
+
+    base = [make_photo(h, w, seed=s) for s in range(nbase)]
+    try:
+        import oracle
+
+        oracle.lib()
+        uniq = [oracle.jpeg_encode(b, quality, "420",
+                                   restart_interval=restart_interval)
+                for b in base]
+        used_oracle = True
+    except (OSError, subprocess.CalledProcessError):
+        from nvimagecodec_tpu.codecs.jpeg.encode import encode_jpeg
+        from nvimagecodec_tpu.core.interfaces import EncodeParams
+
+        params = EncodeParams(quality=quality, chroma_subsampling="420")
+        uniq = [encode_jpeg(b, params, restart_interval=restart_interval)
+                for b in base]
+        used_oracle = False
+    return base, [uniq[i % nbase] for i in range(n)], used_oracle
